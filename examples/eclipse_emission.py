@@ -2,8 +2,7 @@
 
 Builds the same atmosphere in three geometries (transit, emission,
 eclipse Fp/Fs), then runs a short eclipse retrieval on the batched
-ensemble hot path (fused plane-parallel emission kernel on TPU;
-XLA path on CPU).
+ensemble hot path (retrieval/batched.py).
 
     python examples/eclipse_emission.py
 """

@@ -3,7 +3,7 @@
 Builds the flagship HD 209458 b-like transmission model (no external
 files), synthesizes noisy band fluxes at the true parameters, and runs
 a short device-ensemble snooker-DEMC retrieval.  ~1 minute on CPU;
-on a TPU the same code runs thousands of chains.
+on a GPU the same code runs thousands of chains.
 
     python examples/retrieval_demo.py
 """

@@ -1,11 +1,11 @@
-"""pyratbay_tpu: TPU-native radiative transfer and Bayesian retrieval
+"""pyratbay_tpu: accelerator-native radiative transfer and Bayesian retrieval
 for exoplanet atmospheres.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 Pyrat Bay reference package: line lists -> opacities -> 1D atmospheric
 models -> transmission/emission/eclipse spectra -> MCMC retrieval --
 redesigned around functional transforms, fused dense kernels, and SPMD
-sharding over TPU meshes.
+sharding over device meshes.
 """
 from .version import __version__
 

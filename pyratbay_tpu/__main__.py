@@ -8,7 +8,7 @@ import sys
 
 def main():
     parser = argparse.ArgumentParser(
-        description='TPU-native radiative transfer in a Bayesian framework',
+        description='Radiative transfer in a Bayesian framework (JAX)',
         prog='pbay-tpu',
     )
     parser.add_argument(
@@ -79,6 +79,9 @@ def main():
             '-cs borysow FILE SPECIES1 SPECIES2'
         )
         return 1
+
+    from .compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     if args.post is not None:
         from .retrieval.driver import posterior_post_processing

@@ -1,4 +1,4 @@
-"""Thermochemical-equilibrium chemistry network (TPU-native).
+"""Thermochemical-equilibrium chemistry network (jit/vmap-native).
 
 The reference delegates equilibrium chemistry to the external
 ``chemcat`` package (reference: pyratbay/atmosphere/atmosphere.py:211-349
@@ -6,8 +6,8 @@ builds ``chemcat.Network`` and calls ``thermochemical_equilibrium()``;
 pyratbay/pyrat/atmosphere.py:445-470 re-evaluates it on every retrieval
 sample with per-sample metallicity / [X/H] / X-Y-ratio parameters).
 
-This module is a self-contained replacement designed for the TPU
-execution model:
+This module is a self-contained replacement designed for batched
+accelerator execution:
 
 - Chemical potentials g0 = G/(RT) are precomputed per species on a
   dense temperature grid at construction (host, float64) from embedded
@@ -606,28 +606,9 @@ def gibbs_over_rt(name, temp):
 # Starts at the NASA-7 clip floor (200 K) so all species -- polynomial
 # and statmech alike -- freeze at the same temperature bound:
 _T_GRID = np.arange(200.0, 6001.0, 2.0)
-
-
-def _linsolve(mat, rhs):
-    """Gauss-Jordan solve with partial pivoting for the small
-    (nelem+1)-square Newton system.  Pure jnp ops: works in any dtype
-    on any backend (TPU's LuDecomposition expander lacks float64)."""
-    n = mat.shape[0]
-    aug = jnp.concatenate([mat, rhs[:, None]], axis=1)
-
-    def step(k, aug):
-        col = jnp.where(
-            jnp.arange(n) < k, -jnp.inf, jnp.abs(aug[:, k]),
-        )
-        p = jnp.argmax(col)
-        rowk, rowp = aug[k], aug[p]
-        aug = aug.at[k].set(rowp).at[p].set(rowk)
-        factor = (aug[:, k] / aug[k, k]).at[k].set(0.0)
-        aug = aug - factor[:, None] * aug[k][None, :]
-        return aug.at[k].set(aug[k] / aug[k, k])
-
-    aug = lax.fori_loop(0, n, step, aug)
-    return aug[:, n]
+# The Newton system keeps full float32 products on a GPU (whose
+# default float32 dot is TF32):
+_HIGHEST = lax.Precision.HIGHEST
 
 
 def _solve_layer(g0, lnp, b, stoich, n_iter, dtype):
@@ -653,9 +634,11 @@ def _solve_layer(g0, lnp, b, stoich, n_iter, dtype):
         ntot = jnp.exp(ln_ntot)
         mu = mu0 + ln_n - ln_ntot
 
-        a_mat = jnp.einsum('ij,ik,i->jk', stoich, stoich, n)
-        bhat = stoich.T @ n
-        rhs_el = b - bhat + stoich.T @ (n * mu)
+        a_mat = jnp.einsum('ij,ik,i->jk', stoich, stoich, n,
+                           precision=_HIGHEST)
+        bhat = jnp.matmul(stoich.T, n, precision=_HIGHEST)
+        rhs_el = b - bhat + jnp.matmul(stoich.T, n * mu,
+                                       precision=_HIGHEST)
         rhs_n = ntot - nsum + jnp.sum(n * mu)
 
         mat = jnp.zeros((ne + 1, ne + 1), dtype=dtype)
@@ -671,11 +654,11 @@ def _solve_layer(g0, lnp, b, stoich, n_iter, dtype):
         scale = 1.0 / jnp.sqrt(jnp.abs(jnp.diagonal(mat)) + 1e-30)
         mat_s = mat * scale[:, None] * scale[None, :]
         rhs_s = jnp.append(rhs_el, rhs_n) * scale
-        sol = _linsolve(mat_s, rhs_s) * scale
+        sol = jnp.linalg.solve(mat_s, rhs_s) * scale
 
         pi = sol[:ne]
         dln_ntot = sol[ne]
-        dln_n = dln_ntot + stoich @ pi - mu
+        dln_n = dln_ntot + jnp.matmul(stoich, pi, precision=_HIGHEST) - mu
 
         step = jnp.maximum(
             jnp.max(jnp.abs(dln_n)), jnp.abs(dln_ntot),

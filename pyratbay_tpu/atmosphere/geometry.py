@@ -3,7 +3,7 @@
 The reference builds a ragged list of per-impact-parameter chord segments
 (pyratbay/atmosphere/atmosphere.py:737-802) consumed by per-layer C loops.
 Here the geometry is one dense lower-triangular matrix so the optical
-depth becomes a single matmul over the wavelength axis (MXU-friendly).
+depth becomes a single matmul over the wavelength axis.
 """
 import jax.numpy as jnp
 

@@ -20,7 +20,7 @@ from . import constants as pc
 from .config.parser import Config
 from .io import io as pio
 
-__all__ = ['make_flagship', 'reference_c_baseline']
+__all__ = ['make_flagship', 'synthetic_lines', 'reference_c_baseline']
 
 
 def _synthetic_cs_table(path, wn, press, species='H2O', ntemp=10, seed=5):
@@ -175,6 +175,39 @@ retrieval_params =
     forward = build_forward(model, obs, ret)
     example_params = np.asarray(ret.params)
     return model, obs, ret, forward, example_params
+
+
+def synthetic_lines(nlines=50_000, seed=0):
+    """Synthetic H2O-like line list over the flagship band (the LBL
+    and tabulation workload): the DirectLBL input interface."""
+    rng = np.random.default_rng(seed)
+
+    class _Lines:
+        wn = np.arange(5882.0, 9091.0, 1.0)
+        lwn = np.sort(rng.uniform(5800.0, 9200.0, nlines))
+        gf = rng.lognormal(-8, 3, nlines)
+        elow = rng.uniform(0, 15000, nlines)
+        isoid = rng.integers(0, 4, nlines)
+        iso_mass = np.array([18.011, 20.015, 19.015, 19.017])
+        iso_ratio = np.array([0.997, 2e-3, 3.7e-4, 3.1e-4])
+        iso_spec_index = np.zeros(4, int)
+        iso_atm_index = np.full(4, 5)
+        nspec = 1
+        mol_radius = np.array(
+            [1.445, 1.4, 1.1, 2.2, 2.8, 1.6, 2.0, 1.9, 1.97]) * 1e-8
+        mol_mass = np.array(
+            [2.016, 4.003, 1.008, 22.99, 39.098, 18.015, 16.04, 28.01,
+             44.01])
+        cutoff = 25.0
+        tmin = 100.0
+        tmax = 3000.0
+
+        @staticmethod
+        def iso_pf(t):
+            t = np.atleast_1d(t)
+            return np.tile(174.0 * (t / 296.0)**1.5, (4, 1))
+
+    return _Lines()
 
 
 def make_radeq(workdir=None, nlayers=40, wl_low=0.6, wl_high=12.0,

@@ -42,8 +42,8 @@ def run(cfile, root=None, with_log=True):
         log = Log(verb=cfg.verb if cfg.verb is not None else 2)
         log.warning(f'Could not open log file {logname!r}')
     log.head(
-        f"{log.sep}\n  pyratbay_tpu v{__version__}: TPU-native "
-        f"radiative transfer in a Bayesian framework\n"
+        f"{log.sep}\n  pyratbay_tpu v{__version__}: radiative transfer "
+        f"in a Bayesian framework\n"
         f"  Run mode: {runmode}\n  Config: {cfile}\n{log.sep}"
     )
     return _dispatch(cfg, runmode, root, log)

@@ -215,7 +215,13 @@ def write_opacity(ofile, species, temp, press, wn, opacity):
 def read_opacity(ofile, extract='all'):
     """Read a tabulated cross-section file (.npz or petitRADTRANS h5)."""
     if ofile.endswith('petitRADTRANS.h5'):
-        import h5py
+        try:
+            import h5py
+        except ImportError as exc:
+            raise ImportError(
+                f'Reading {ofile!r} (petitRADTRANS HDF5 format) needs the '
+                "'h5py' package, which is not installed"
+            ) from exc
         with h5py.File(ofile, 'r') as f:
             species = list(f['mol_name'])[0].decode('utf-8')
             temp = np.array(f['t'])

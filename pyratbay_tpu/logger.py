@@ -4,7 +4,7 @@ The reference threads an mc3.utils.Log through every constructor
 (pyratbay/tools/parser.py:612-618): a single object that tees messages
 to the screen (gated by verbosity -1..>6) and to the run's log file,
 collects warnings, and turns fatal errors into raised exceptions.
-This is the TPU-native equivalent, with multi-process muting driven by
+This is the equivalent here, with multi-process muting driven by
 the jax process index instead of the MPI rank
 (reference tools/mpi_tools.py:43-64).
 """

@@ -688,7 +688,7 @@ class Model:
         engine='parity' reproduces the reference's profile-grid
         sampling exactly (pyratbay/pyrat/extinction.py:14-126, with
         grid-temperature densities); engine='direct' uses the
-        exact-Voigt TPU kernel (faster and free of the profile grid's
+        exact-Voigt device engine (faster and free of the profile grid's
         few-percent quantization).
         """
         cfg = self.cfg
@@ -729,7 +729,7 @@ class Model:
         )
         vmr = self.base_vmr
         if engine == 'direct':
-            # TPU fast path: exact-Voigt direct evaluation, vmapped
+            # Fast path: exact-Voigt direct evaluation, vmapped
             # over (T, layer) cells (opacity/lbl_tpu.py):
             from .opacity.lbl_tpu import DirectLBL
             direct = DirectLBL(lbl)
@@ -980,43 +980,22 @@ class Model:
         ec_total = ec + ec_cloud if self.is_patchy else ec
         path = geometry.transit_path_matrix(rr, rtop) * rscale
 
-        # Spectrum: fused pallas kernel on TPU (one HBM read of ec, one
-        # [nwave] write -- the forward is bandwidth-bound; see
-        # spectrum/rt_pallas.py), unfused XLA elsewhere.  depth/ideep
-        # stay on the XLA path: they are diagnostics, dead-code
-        # eliminated from jitted consumers that only use the spectrum.
-        from . import tuning
-        fused = jax.default_backend() == 'tpu' and tuning.RT_PALLAS
         depth, ideep = rt.transit_depth(
             ec_total, path, self.maxdepth, rtop, ibottom,
         )
-        if fused:
-            from .spectrum.rt_pallas import transit_spectrum_fused
-            spectrum = transit_spectrum_fused(
-                ec_total, path, rr, rstar_n, rtop, ibottom,
-                deck_itop=deck_itop, deck_rsurf=rsurf_n,
-                maxdepth=self.maxdepth,
-            )
-        else:
-            spectrum = rt.transmission_spectrum(
-                depth, ideep, rr, rstar_n, rtop,
-                deck_rsurf=rsurf_n, deck_itop=deck_itop,
-            )
+        spectrum = rt.transmission_spectrum(
+            depth, ideep, rr, rstar_n, rtop,
+            deck_rsurf=rsurf_n, deck_itop=deck_itop,
+        )
         result = {'spectrum': spectrum, 'depth': depth, 'ideep': ideep}
         if self.is_patchy:
             cloudy = spectrum
             depth_clear, ideep_clear = rt.transit_depth(
                 ec, path, self.maxdepth, rtop, nlayers,
             )
-            if fused:
-                clear = transit_spectrum_fused(
-                    ec, path, rr, rstar_n, rtop, nlayers,
-                    maxdepth=self.maxdepth,
-                )
-            else:
-                clear = rt.transmission_spectrum(
-                    depth_clear, ideep_clear, rr, rstar_n, rtop,
-                )
+            clear = rt.transmission_spectrum(
+                depth_clear, ideep_clear, rr, rstar_n, rtop,
+            )
             result['cloudy'] = cloudy
             result['clear'] = clear
             result['depth_clear'] = depth_clear

@@ -1,12 +1,13 @@
 """Observed data: band-integrated depths/fluxes and their passbands.
 
 Band integration is a dense [nbands, nwave] weight matrix times the
-spectrum (one matvec on the MXU) instead of the reference's per-band
+spectrum (one matvec on the device) instead of the reference's per-band
 trapezoid loops (pyratbay/pyrat/observation.py).
 """
 import os
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from . import constants as pc
@@ -221,7 +222,8 @@ class Observation:
 
     def band_integrate(self, spectrum):
         """Band-integrated model values [nbands] (jit-safe matvec)."""
-        return self._band_matrix @ spectrum
+        return jnp.matmul(self._band_matrix, spectrum,
+                          precision=jax.lax.Precision.HIGHEST)
 
     def offset_data(self, offset_pars):
         """Data with per-instrument offsets added (jit-safe).

@@ -107,7 +107,7 @@ class VanderWaals:
             strength = pc.C3_KERNEL * float(self.gf[i]) / self.part_func
 
             # (dnu/dsigma)^-1.5 via sqrt instead of pow: pow lowers to
-            # exp(log()) on the VPU and this block is the forward
+            # exp(log()) on the device and this block is the forward
             # model's transcendental hot spot; t*sqrt(t) with
             # t = dsigma/dnu is exact for the 3/2 exponent:
             t_ratio = dsig / abs_dwn

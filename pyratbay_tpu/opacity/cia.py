@@ -7,6 +7,7 @@ interpolation in temperature (device-side).
 Reference behavior: pyratbay/opacity/cia.py.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from .. import constants as pc
@@ -130,7 +131,10 @@ class CIA:
         # Table columns outside the tabulated wavenumber span are
         # exactly zero (splinterp extrap=0 at setup), so no runtime
         # range mask is needed:
-        ec = (w_t * dens_prod[None, :]).T @ jnp.asarray(self.tab_cs_amagat)
+        ec = jnp.matmul(
+            (w_t * dens_prod[None, :]).T, jnp.asarray(self.tab_cs_amagat),
+            precision=jax.lax.Precision.HIGHEST,
+        )
         return ec[0] if scalar else ec
 
     def __str__(self):

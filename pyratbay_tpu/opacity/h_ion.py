@@ -6,6 +6,7 @@ path is a tiny einsum over the temperature polynomial -- fully fused by
 XLA.  Reference behavior: pyratbay/opacity/hydrogen_ion.py.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from .. import constants as pc
@@ -96,7 +97,8 @@ class HydrogenIon:
         temp = jnp.clip(jnp.asarray(temperature), 1000.0, 10080.0)
         beta = jnp.sqrt(5040.0 / temp)
         powers = jnp.stack([beta ** (i + 2) for i in range(6)], axis=-1)
-        sigma = powers @ jnp.asarray(self._ff_factors).T
+        sigma = jnp.matmul(powers, jnp.asarray(self._ff_factors).T,
+                           precision=jax.lax.Precision.HIGHEST)
         return sigma * (pc.k * temp)[..., None]
 
     def extinction(self, temperature, dens_h, dens_e):

@@ -19,7 +19,7 @@ published golden files --
 
 The windowed adds are vectorized with numpy ufunc scatter; layers are
 independent (the reference forks processes; here they are a trivially
-parallel loop or a vmapped batch on TPU via lbl_tpu).
+parallel loop or a vmapped device batch via lbl_tpu).
 """
 import numpy as np
 

@@ -2,12 +2,13 @@
 
 Loads npz cross-section tables [nspec, ntemp, nlayers, nwave], optionally
 re-interpolated in pressure/temperature at load time, and provides the
-runtime temperature interpolation as one fused gather + einsum: the TPU
+runtime temperature interpolation as one fused gather + einsum: the device
 replacement for the reference's C interp_ec triple loop
 (src_c/_extcoeff.c:367-472, pyratbay/opacity/line_sampling.py).
 """
 import numpy as np
 import scipy.interpolate as sip
+import jax
 import jax.numpy as jnp
 
 from ..io import io as pio
@@ -261,8 +262,7 @@ class LineSample:
         temperature axis instead of per-layer gathers: under vmap over
         retrieval chains the gather formulation re-reads two [l, w]
         table slices per chain (~0.7 GB/batch of gather traffic at the
-        flagship shape), while the einsum reads the table once and runs
-        on the MXU.
+        flagship shape), while the einsum reads the table once.
         """
         tlo, w_hi = self._t_weights(temperature)
         table = jnp.asarray(self.cs_table)          # [s, t, l, w]
@@ -272,7 +272,8 @@ class LineSample:
             (t_idx == tlo[None, :]) * (1.0 - w_hi)[None, :]
             + (t_idx == tlo[None, :] + 1) * w_hi[None, :]
         )
-        cs = jnp.einsum('tl,stlw->slw', w_t, table)
+        cs = jnp.einsum('tl,stlw->slw', w_t, table,
+                        precision=jax.lax.Precision.HIGHEST)
         if per_mol:
             return cs
         return jnp.sum(cs, axis=0)
@@ -304,7 +305,8 @@ class LineSample:
         weights = self._jit_ratios(pars)            # [s]
         d_w = jnp.asarray(density).T * weights[:, None]   # [s, l]
         w_stl = w_t[None, :, :] * d_w[:, None, :]   # [s, t, l] (tiny)
-        return jnp.einsum('stl,stlw->lw', w_stl, table)
+        return jnp.einsum('stl,stlw->lw', w_stl, table,
+                          precision=jax.lax.Precision.HIGHEST)
 
     def __str__(self):
         from ..tools import Formatted_Write

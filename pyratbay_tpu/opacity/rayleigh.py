@@ -56,8 +56,8 @@ class Rayleigh:
 
     def ec_rank1(self, density):
         """Rank-1 factorization (layer column, wave row) of the EC:
-        the batched ensemble kernels compose col x row in VMEM, so the
-        dense [B, nlayers, nwave] buffer never reaches HBM."""
+        the ensemble RT kernel composes col x row in registers, so the
+        dense [B, nlayers, nwave] buffer never reaches device memory."""
         return density, jnp.asarray(self.cross_section)
 
     def __str__(self):

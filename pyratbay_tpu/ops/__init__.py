@@ -1,4 +1,4 @@
-"""Core numerical operations (pure JAX, TPU-first).
+"""Core numerical operations (pure JAX).
 
 Everything in this subpackage is functional and jit/vmap/shard_map safe:
 no Python-level data-dependent control flow, static shapes throughout.

@@ -1,8 +1,7 @@
 """Integration primitives (trapezoid / Simpson) as vectorized JAX ops.
 
 The reference does these in per-wavelength C loops (src_c/_trapezoid.c,
-src_c/_simpson.c); here they are dense array ops so XLA can fuse them and
-map reductions onto the VPU/MXU.
+src_c/_simpson.c); here they are dense array ops so XLA can fuse them.
 """
 import jax.numpy as jnp
 

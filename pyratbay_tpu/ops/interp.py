@@ -15,6 +15,7 @@ because the published golden spectra were generated with it;
 `second_deriv` implements the textbook natural spline.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 __all__ = [
@@ -105,13 +106,15 @@ def lin_interp_trow(table, xin, dy_dx, xout, lo=0, hi=None):
     # Row selection as a dense contraction over the (small) x axis
     # instead of a row gather: under vmap over retrieval chains the
     # gather re-reads [len(xout), ncol] rows per chain, while the
-    # einsum reads the table once and runs on the MXU.  The 0/1
+    # einsum reads the table once.  The 0/1
     # selection weights make this bit-identical to table[idx].
     sel = (
         jnp.arange(nx)[:, None] == idx[None, :]
     ).astype(table.dtype)                              # [nx, nout]
-    base = jnp.einsum('xX,xc->Xc', sel, table)
-    slope = jnp.einsum('xX,xc->Xc', sel[:nx - 1], dy_dx)
+    base = jnp.einsum('xX,xc->Xc', sel, table,
+                      precision=jax.lax.Precision.HIGHEST)
+    slope = jnp.einsum('xX,xc->Xc', sel[:nx - 1], dy_dx,
+                       precision=jax.lax.Precision.HIGHEST)
     out = base + deltax[:, None] * slope
     # On exact-grid hits the reference takes the row as-is; linear interp
     # with deltax=0 gives the same result, so no special case is needed.

@@ -1,7 +1,7 @@
 """Special functions: exponential integrals, Faddeeva / Voigt profiles,
 and broadening half-widths.
 
-All device functions are elementwise and fully vectorized (VPU-friendly);
+All device functions are elementwise and fully vectorized;
 no data-dependent control flow (branches become jnp.where selects).
 
 Voigt conventions (reference pyratbay/opacity/broadening/broadening.py):
@@ -172,7 +172,7 @@ def wofz_real(x, y, n_terms=None):
     """Real part of the Faddeeva function w(x + i y), y >= 0.
 
     Three fixed-cost regions selected by masks (no data-dependent
-    control flow -- TPU friendly):
+    control flow):
       * y < 0.03: exact-Gaussian + Dawson-Taylor decomposition;
       * interior: Weideman (1994) rational approximation;
       * x^2 + y^2 >= 196: large-|z| asymptotic series.

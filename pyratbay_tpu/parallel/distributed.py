@@ -2,17 +2,18 @@
 
 The reference's multi-process story is mpi4py rank/size discovery plus
 MPI shared-memory windows (tools/mpi_tools.py:18-116,
-opacity/line_sampling.py:253-275).  The TPU-native equivalent is one
+opacity/line_sampling.py:253-275).  The equivalent here is one
 jax.distributed process group per host: after initialization,
-jax.devices() spans every chip in the slice, and the same
-(chains, wave) mesh + GSPMD program runs unchanged -- collectives ride
-ICI within a slice and DCN across slices, inserted by XLA.
+jax.devices() spans every device of every process, and the same
+(chains, wave) mesh + GSPMD program runs unchanged -- XLA inserts the
+collectives.
 
 Configuration, in precedence order:
   1. config keys  dist_coordinator / dist_nprocs / dist_procid;
   2. environment  PBT_COORDINATOR / PBT_NPROCS / PBT_PROCID;
-  3. cloud TPU auto-detection (jax.distributed.initialize() with no
-     arguments works on TPU pods).
+  3. PBT_NPROCS=auto: JAX's own cluster detection,
+     jax.distributed.initialize() with no arguments, for the cluster
+     environments JAX recognizes.
 """
 import os
 
@@ -43,22 +44,19 @@ def initialize_distributed(cfg=None):
         procid = getattr(cfg, 'dist_procid', None)
     if coordinator is None:
         coordinator = os.environ.get('PBT_COORDINATOR')
-    if nprocs is None and os.environ.get('PBT_NPROCS'):
-        nprocs = int(os.environ['PBT_NPROCS'])
+    if nprocs is None:
+        nprocs = os.environ.get('PBT_NPROCS') or None
     if procid is None and os.environ.get('PBT_PROCID'):
         procid = int(os.environ['PBT_PROCID'])
 
     if coordinator is None and nprocs is None:
-        # Nothing configured: stay single-process (TPU pods can still
-        # auto-initialize by exporting PBT_NPROCS=auto):
         return False
-
-    if nprocs == 'auto' or os.environ.get('PBT_NPROCS') == 'auto':
+    if str(nprocs) == 'auto':
         jax.distributed.initialize()
     else:
         jax.distributed.initialize(
             coordinator_address=coordinator,
-            num_processes=nprocs,
+            num_processes=int(nprocs) if nprocs is not None else None,
             process_id=procid,
         )
     _initialized = True

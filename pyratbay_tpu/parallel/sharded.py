@@ -174,12 +174,6 @@ def _shard_direct_lbl(engine, mesh, nshards):
     Tile rows are duplicated up to a shard multiple; the engine's
     flatten-and-slice ([:, :nwave]) discards the extra outputs.
     """
-    # GSPMD cannot partition an opaque pallas_call along the sharded
-    # tile axis; a sharded engine uses the XLA wing path (which GSPMD
-    # splits tile-wise for free).  The flag scopes the override to the
-    # sharded tables -- engine.use_pallas is untouched and applies
-    # again after engine.unshard():
-    engine._sharded_wave = True
     pad_wing = (-engine.ntiles) % nshards
     pad_core = (-engine.ntiles_core) % nshards
     sharded = {}

@@ -1,36 +1,26 @@
 """Natively-batched ensemble forward: the retrieval/benchmark hot path.
 
-`jax.vmap(build_forward(...))` is correct but leaves throughput on the
-table: vmapping the per-chain table contractions turns them into
-batched dots whose XLA layouts are batch-minor, forcing full-size
-layout copies of every [nlayers, nwave] opacity contribution before
-the (row-major) fused RT kernel -- round-4 profiling measured three
-335 MB copies per 512-chain batch, ~25% of the forward's wall time.
-
-This builder assembles the ensemble explicitly instead:
+Semantics match `jax.vmap(build_forward(...))` (pinned by
+tests/test_batched.py); the ensemble is assembled explicitly so the
+transit RT can run as one fused kernel over the batch:
 
 * the parameter mapping + atmospheric state (small arrays) reuse the
   per-chain `forward.state` under vmap;
-* the line-sample temperature interpolation is one flat einsum whose
-  output keeps the batched dot's NATURAL layer-major [l, B, w] layout
-  -- the kernels consume it directly, so the layout copy the [B, l, w]
-  form pays never exists (tuning.ENS_LS_LBW; an in-kernel contraction
-  variant exists too but measured slower, tuning.ENS_INKERNEL_LS);
-* CIA contracts in-kernel against its tiny chain-invariant table;
-* rank-1 sources (Rayleigh, power-law hazes, gray clouds) ship as
-  per-chain (layer column, wave row) operand pairs composed in VMEM
-  -- no dense [B, l, w] buffers; genuinely 2-D sources (active
-  alkali, H-) vmap as elementwise fusions (layout-flexible), and
-  alkali lines whose cutoff windows miss the grid are pruned
-  statically;
-* transit RT runs through the batched fused pallas kernel
-  (spectrum/ensemble_pallas.py); plane-parallel emission/eclipse
-  through the fused emission kernel (spectrum/emission_pallas.py,
-  in-kernel Planck + cumtrapz-matmul depth); band integration is one
-  [B, W] x [W, nbands] matmul.
+* the line-sample temperature interpolation is one flat einsum over
+  the ensemble;
+* CIA ships as per-chain temperature x density weights against its
+  small chain-invariant table, and rank-1 sources (Rayleigh,
+  power-law hazes, gray clouds) as per-chain (layer column, wave row)
+  pairs -- no dense [B, l, w] buffers for either; genuinely 2-D
+  sources (active alkali, H-) vmap as elementwise fusions, and alkali
+  lines whose cutoff windows miss the grid are pruned statically;
+* transit RT runs through spectrum/ensemble_pallas.py (the Triton
+  kernel on a GPU, its XLA reference elsewhere); plane-parallel
+  emission/eclipse composes the extinction densely and vmaps the XLA
+  solver; band integration is one [B, W] x [W, nbands] product.
 
 Falls back to plain vmap for configurations it does not cover
-(two-stream fluxes, live-LBL opacities, high-res channels).
+(two-stream fluxes, live-LBL opacities).
 Reference workload: chain-parallel MCMC over pyrat.eval
 (pyratbay/pyrat/pyrat_obj.py:225-385, 452-464).
 """
@@ -42,6 +32,9 @@ from .. import constants as pc
 from ..atmosphere import geometry, vmr as vmr_models
 from ..ops.planck import blackbody_wn
 from ..spectrum import rt
+from ..spectrum.ensemble_pallas import (
+    dense_extinction, transit_spectrum_ensemble,
+)
 from .forward import build_forward
 
 __all__ = ['build_forward_batched', 'build_log_posterior_batched']
@@ -148,17 +141,6 @@ def build_forward_batched(model, obs=None, ret=None):
                 / (wn[hires_ilo + 1] - wn[hires_ilo]), 0., 1.,
             )
 
-    # Fused-RT dispatch is fixed at BUILD time (pyratbay_tpu.tuning is
-    # read once here; rebuild the forward after set_tuning):
-    from .. import tuning
-    ens_interpret = tuning.ENS_FORCE_INTERPRET
-    use_pallas = ens_interpret or (
-        jax.default_backend() == 'tpu' and tuning.RT_PALLAS)
-    ens_lanes = tuning.ENS_LANES
-    ens_cb = tuning.ENS_CHAIN_BLOCK
-    ls_k_max = tuning.ENS_INKERNEL_LS
-    ls_lbw = tuning.ENS_LS_LBW
-
     def forward_b(params_b):
         params_b = jnp.asarray(params_b)
         st = jax.vmap(state)(params_b)
@@ -170,22 +152,17 @@ def build_forward_batched(model, obs=None, ret=None):
         fpatchy = st['fpatchy']
         nb = params_b.shape[0]
 
-        # Contributions stay UN-summed: the ensemble RT kernel adds
-        # them in VMEM, which pins every producer's layout to the
-        # kernel's row-major operand (no XLA layout copies, no
-        # add-fusion buffer).  Elementwise sources share one
-        # accumulator (they fuse into a single producer); the
-        # line-sample dot keeps its own buffer.  The XLA fallback
-        # sums everything.
+        # Extinction stays in the RT kernel's operand classes: dense
+        # [B, l, w] parts (the line-sample contraction; elementwise
+        # sources share one accumulator), rank-1 (layer column, wave
+        # row) pairs, and CIA weights against the chain-invariant
+        # table.  The XLA path composes them densely.
         parts = []
-        parts_lbw = []
         r1_col_list = []
         r1_row_list = []
         cloud_parts = []
         cia_ws = []
         cia_tabs = []
-        ls_ws = []
-        ls_tabs = []
         elem = None
         deck_itop = deck_rsurf = deck_tsurf = None
         have_deck = False
@@ -212,44 +189,12 @@ def build_forward_batched(model, obs=None, ret=None):
                     * ratios[:, :, None]
                 )                                       # [B, s, l]
                 w_stl = w_t[:, None] * d_w[:, :, None]  # [B, s, t, l]
-                n_k = m.nspec * m.ntemp
-                if use_pallas and n_k <= ls_k_max:
-                    # In-kernel contraction (ensemble_pallas):
-                    # the [B, l, W] contribution buffer and its
-                    # batch-minor layout copy never materialize --
-                    # the kernel contracts per-chain weight columns
-                    # against the chain-invariant [K, l, wave-tile]
-                    # table slab:
-                    ls_ws.append(
-                        w_stl.reshape(nb, n_k, nlayers)[..., None],
-                    )
-                    ls_tabs.append(np.asarray(m.cs_table).reshape(
-                        n_k, nlayers, nwave))
-                    continue
-                if use_pallas and ls_lbw:
-                    # One flat einsum emitting the batched dot's
-                    # NATURAL [l, B, w] layout: the kernel's
-                    # layer-major blocks consume it directly, so the
-                    # full-size layout copy the 'blw' form pays never
-                    # happens:
-                    parts_lbw.append(jnp.einsum(
-                        'bstl,stlw->lbw', w_stl,
-                        jnp.asarray(m.cs_table),
-                    ))
-                    continue
-                # One flat einsum over the ensemble (a gather-lerp
-                # formulation was measured 2x slower: TPU row gathers
-                # dominate).  The batched-dot output takes one layout
-                # copy in front of the RT kernel:
-                contrib = jnp.einsum(
-                    'bstl,stlw->blw', w_stl,
-                    jnp.asarray(m.cs_table),
-                )
-            elif mtype == 'cia':
-                # The CIA weights go INTO the ensemble RT kernel (the
-                # table is tiny and chain-invariant: the kernel
-                # contracts it per wave tile); on the XLA fallback the
-                # same weights become an einsum:
+                parts.append(jnp.einsum(
+                    'bstl,stlw->blw', w_stl, jnp.asarray(m.cs_table),
+                    precision=jax.lax.Precision.HIGHEST,
+                ))
+                continue
+            if mtype == 'cia':
                 tcl = jnp.clip(temp, m.tmin, m.tmax)
                 temps = jnp.asarray(m.temps)
                 tlo = jnp.clip(
@@ -265,31 +210,25 @@ def build_forward_batched(model, obs=None, ret=None):
                 )                                       # [B, l, t]
                 cia_tabs.append(np.asarray(m.tab_cs_amagat))
                 continue
-            elif mtype == 'alkali':
+            if mtype == 'rayleigh':
+                col, row = jax.vmap(m.ec_rank1)(dens[:, :, imol])
+                r1_col_list.append(col)
+                r1_row_list.append(jnp.broadcast_to(row, (nb, nwave)))
+                continue
+            if mtype == 'cloud' and not model.is_patchy \
+                    and hasattr(m, 'ec_rank1'):
+                col, row = jax.vmap(m.ec_rank1)(temp, pars)
+                r1_col_list.append(col)
+                r1_row_list.append(jnp.broadcast_to(row, (nb, nwave)))
+                continue
+
+            if mtype == 'alkali':
                 if not getattr(m, 'active_lines', True):
                     # Every line's cutoff window is off this grid:
                     # the contribution is exactly zero.
                     continue
                 contrib = jax.vmap(m.extinction)(temp, dens[:, :, imol])
-            elif mtype == 'rayleigh':
-                if use_pallas:
-                    col, row = jax.vmap(m.ec_rank1)(dens[:, :, imol])
-                    r1_col_list.append(col)
-                    r1_row_list.append(jnp.broadcast_to(
-                        row, (nb, nwave)))
-                    continue
-                contrib = jax.vmap(m.extinction)(dens[:, :, imol])
             elif mtype == 'cloud':
-                if (use_pallas and not model.is_patchy
-                        and hasattr(m, 'ec_rank1')):
-                    # Rank-1 clouds/hazes go to the kernel as
-                    # (layer column, wave row) pairs -- no dense
-                    # buffer, no per-layer transcendentals:
-                    col, row = jax.vmap(m.ec_rank1)(temp, pars)
-                    r1_col_list.append(col)
-                    r1_row_list.append(jnp.broadcast_to(
-                        row, (nb, nwave)))
-                    continue
                 contrib = jax.vmap(m.extinction)(temp, pars)
             elif mtype == 'h_ion':
                 contrib = jax.vmap(m.extinction)(
@@ -298,109 +237,28 @@ def build_forward_batched(model, obs=None, ret=None):
             else:  # pragma: no cover -- _supported() gates this
                 raise ValueError(f'Unsupported opacity type {mtype}')
 
-            if mtype == 'cloud' and model.is_patchy:
+            if mtype == 'cloud':
                 cloud_parts.append(contrib)
-            elif mtype == 'line_sample':
-                parts.append(contrib)
             else:
                 elem = contrib if elem is None else elem + contrib
         if elem is not None:
             parts.append(elem)
-        if cloud_parts and model.is_patchy:
+        if len(cloud_parts) > 1:
             cloud_sum = cloud_parts[0]
             for extra_cloud in cloud_parts[1:]:
                 cloud_sum = cloud_sum + extra_cloud
             cloud_parts = [cloud_sum]
 
-        def run_emission_rt(fused_e, parts_e, parts_lbw_e,
-                            cloud_parts_e, cia_ws_e,
-                            cia_tabs_e, ls_ws_e, ls_tabs_e,
-                            radius_e, temp_e, rtop_e,
-                            ibottom_e, ditop, dtsurf, fpatchy_e, nb_e):
-            """Plane-parallel emission over the ensemble: fused pallas
-            kernel on TPU (in-kernel Planck + cumtrapz-matmul depth,
-            spectrum/emission_pallas.py), per-chain vmap elsewhere."""
-            if fused_e:
-                from ..spectrum.emission_pallas import (
-                    emission_flux_ensemble,
-                )
-                cia_w = cia_tab = None
-                if cia_ws_e:
-                    cia_w = jnp.concatenate(cia_ws_e, axis=2)
-                    cia_tab = np.concatenate(cia_tabs_e, axis=0)
-                ls_w = ls_tab = None
-                if ls_ws_e:
-                    ls_w = jnp.concatenate(ls_ws_e, axis=1)
-                    ls_tab = np.concatenate(ls_tabs_e, axis=0)
-
-                def run_one(ec_parts, ibot, dit, dts):
-                    return emission_flux_ensemble(
-                        ec_parts, radius_e, temp_e, wn, quad_mu,
-                        quad_w, rtop_e, ibot, deck_itop=dit,
-                        deck_tsurf=dts, cia_w=cia_w, cia_tab=cia_tab,
-                        ls_w=ls_w, ls_tab=ls_tab,
-                        ec_parts_lbw=parts_lbw_e,
-                        r1_cols=r1_cols, r1_rows=r1_rows,
-                        maxdepth=maxdepth, interpret=ens_interpret,
-                        max_lanes=ens_lanes, chain_block=ens_cb,
-                    )
-            else:
-                parts_e = parts_e + [
-                    jnp.einsum('blt,tw->blw', cw, jnp.asarray(ct))
-                    for cw, ct in zip(cia_ws_e, cia_tabs_e)
-                ]
-                wn_j = jnp.asarray(wn)
-                mu_j = jnp.asarray(quad_mu)
-                w_col = jnp.asarray(quad_w)[:, None]
-
-                def espec_one(ec_parts, rad_i, temp_i, rtop_i,
-                              ibot_i, surf):
-                    dit, dts = surf
-                    ec_i = ec_parts[0]
-                    for part in ec_parts[1:]:
-                        ec_i = ec_i + part
-                    depth, ideep = rt.plane_parallel_depth(
-                        ec_i, rad_i, maxdepth, rtop_i, ibot_i,
-                    )
-                    bbody = blackbody_wn(wn_j, temp_i[:, None])
-                    if dts is not None:
-                        bb_surf = blackbody_wn(wn_j, dts)
-                        bbody = jnp.where(
-                            (jnp.arange(nlayers) == dit)[:, None],
-                            bb_surf[None, :], bbody,
-                        )
-                        ideep = jnp.clip(ideep, 0, dit)
-                    inten = rt.plane_parallel_intensity(
-                        depth, bbody, mu_j, ideep, rtop_i,
-                    )
-                    return jnp.sum(inten * w_col, axis=0)
-
-                def run_one(ec_parts, ibot, dit, dts):
-                    surf_args = (dit, dts)
-                    surf_axes = (
-                        (0, 0) if dit is not None else (None, None)
-                    )
-                    ib_ax = 0 if getattr(ibot, 'ndim', 0) else None
-                    return jax.vmap(
-                        espec_one,
-                        in_axes=((0,) * len(ec_parts), 0, 0, 0,
-                                 ib_ax, surf_axes),
-                    )(tuple(ec_parts), radius_e, temp_e, rtop_e,
-                      ibot, surf_args)
-
-            spectrum_e = run_one(
-                parts_e + cloud_parts_e, ibottom_e, ditop, dtsurf,
-            )
-            if model.is_patchy:
-                cloudy = spectrum_e
-                clear = run_one(
-                    parts_e, jnp.full((nb_e,), nlayers), None, None,
-                )
-                fp = fpatchy_e if fpatchy_e is not None else 0.0
-                spectrum_e = (
-                    fp[:, None] * cloudy + (1 - fp[:, None]) * clear
-                )
-            return spectrum_e
+        r1_cols = r1_rows = None
+        if r1_col_list:
+            r1_cols = jnp.stack(r1_col_list, axis=1)    # [B, r, l]
+            r1_rows = jnp.stack(r1_row_list, axis=1)    # [B, r, w]
+        cia_w = cia_tab = None
+        if cia_ws:
+            cia_w = jnp.concatenate(cia_ws, axis=2)     # [B, l, K]
+            cia_tab = np.concatenate(cia_tabs, axis=0)  # [K, w]
+        if not (parts or cloud_parts or r1_col_list or cia_ws):
+            parts = [jnp.zeros((nb, nlayers, nwave))]
 
         # ---- RT (batched):
         if have_deck:
@@ -408,111 +266,57 @@ def build_forward_batched(model, obs=None, ret=None):
         else:
             ibottom = jnp.full((nb,), nlayers)
 
-        r1_cols = r1_rows = None
-        if r1_col_list:
-            r1_cols = jnp.stack(r1_col_list, axis=1)[..., None]
-            r1_rows = jnp.stack(r1_row_list, axis=1)[:, :, None, :]
-
-        fused = use_pallas
-        if not parts and not fused:
-            parts = [jnp.zeros((nb, nlayers, nwave))]
-
-        if not is_transit:
-            spectrum = run_emission_rt(
-                fused, parts, parts_lbw, cloud_parts, cia_ws,
-                cia_tabs, ls_ws, ls_tabs, radius, temp, rtop, ibottom,
-                deck_itop if have_deck else None,
-                deck_tsurf if have_deck else None,
-                fpatchy, nb,
-            )
-        elif fused:
+        if is_transit:
             rr = radius / rscale
             path = jax.vmap(geometry.transit_path_matrix)(
                 rr, rtop) * rscale
-            rsurf_n = deck_rsurf / rscale if have_deck else None
-            from ..spectrum.ensemble_pallas import (
-                transit_spectrum_ensemble,
-            )
-            cia_w = cia_tab = None
-            if cia_ws:
-                cia_w = jnp.concatenate(cia_ws, axis=2)
-                cia_tab = np.concatenate(cia_tabs, axis=0)
-            ls_w = ls_tab = None
-            if ls_ws:
-                ls_w = jnp.concatenate(ls_ws, axis=1)
-                ls_tab = np.concatenate(ls_tabs, axis=0)
+            deck_surf = deck_rsurf / rscale if have_deck else None
 
-            def run_ensemble(ec_parts, ibot, ditop, dsurf):
+            def run_rt(ec_parts, ibot, ditop, dsurf):
                 return transit_spectrum_ensemble(
                     ec_parts, path, rr, rstar_n, rtop, ibot,
                     deck_itop=ditop, deck_rsurf=dsurf,
                     cia_w=cia_w, cia_tab=cia_tab,
-                    ls_w=ls_w, ls_tab=ls_tab,
-                    ec_parts_lbw=parts_lbw,
                     r1_cols=r1_cols, r1_rows=r1_rows,
-                    maxdepth=maxdepth, interpret=ens_interpret,
-                    max_lanes=ens_lanes, chain_block=ens_cb,
-                )
-
-            spectrum = run_ensemble(
-                parts + cloud_parts, ibottom,
-                deck_itop if have_deck else None,
-                rsurf_n if have_deck else None,
-            )
-            if model.is_patchy:
-                cloudy = spectrum
-                clear = run_ensemble(
-                    parts, jnp.full((nb,), nlayers), None, None,
-                )
-                fp = fpatchy if fpatchy is not None else 0.0
-                spectrum = (
-                    fp[:, None] * cloudy + (1 - fp[:, None]) * clear
+                    maxdepth=maxdepth,
                 )
         else:
-            # XLA fallback (CPU / PBT_RT_PALLAS=0): CIA back to an
-            # ensemble einsum, then the unfused per-chain RT:
-            rr = radius / rscale
-            path = jax.vmap(geometry.transit_path_matrix)(
-                rr, rtop) * rscale
-            rsurf_n = deck_rsurf / rscale if have_deck else None
-            for cw, ct in zip(cia_ws, cia_tabs):
-                parts.append(jnp.einsum('blt,tw->blw', cw,
-                                        jnp.asarray(ct)))
+            wn_j = jnp.asarray(wn)
+            mu_j = jnp.asarray(quad_mu)
+            w_col = jnp.asarray(quad_w)[:, None]
 
-            def spec_one(ec_parts, path_i, rr_i, rtop_i, ibot_i, surf):
-                ditop, dsurf = surf
-                ec_i = ec_parts[0]
-                for part in ec_parts[1:]:
-                    ec_i = ec_i + part
-                depth, ideep = rt.transit_depth(
-                    ec_i, path_i, maxdepth, rtop_i, ibot_i,
+            def espec_one(ec_i, rad_i, temp_i, rtop_i, ibot_i, dit, dts):
+                depth, ideep = rt.plane_parallel_depth(
+                    ec_i, rad_i, maxdepth, rtop_i, ibot_i,
                 )
-                return rt.transmission_spectrum(
-                    depth, ideep, rr_i, rstar_n, rtop_i,
-                    deck_rsurf=dsurf, deck_itop=ditop,
+                bbody = blackbody_wn(wn_j, temp_i[:, None])
+                if dts is not None:
+                    bb_surf = blackbody_wn(wn_j, dts)
+                    bbody = jnp.where(
+                        (jnp.arange(nlayers) == dit)[:, None],
+                        bb_surf[None, :], bbody,
+                    )
+                    ideep = jnp.clip(ideep, 0, dit)
+                inten = rt.plane_parallel_intensity(
+                    depth, bbody, mu_j, ideep, rtop_i,
                 )
+                return jnp.sum(inten * w_col, axis=0)
 
-            all_parts = tuple(parts + cloud_parts)
-            surf_args = (
-                (deck_itop, rsurf_n) if have_deck else (None, None)
-            )
-            surf_axes = (0, 0) if have_deck else (None, None)
-            spectrum = jax.vmap(
-                spec_one,
-                in_axes=((0,) * len(all_parts), 0, 0, 0, 0, surf_axes),
-            )(all_parts, path, rr, rtop, ibottom, surf_args)
+            def run_rt(ec_parts, ibot, ditop, dtsurf):
+                ec = dense_extinction(
+                    ec_parts, cia_w, cia_tab, r1_cols, r1_rows)
+                deck_axis = None if ditop is None else 0
+                return jax.vmap(
+                    espec_one,
+                    in_axes=(0, 0, 0, 0, 0, deck_axis, deck_axis),
+                )(ec, radius, temp, rtop, ibot, ditop, dtsurf)
 
-            if model.is_patchy:
-                cloudy = spectrum
-                clear = jax.vmap(
-                    spec_one,
-                    in_axes=((0,) * len(parts), 0, 0, 0, None,
-                             (None, None)),
-                )(tuple(parts), path, rr, rtop, nlayers, (None, None))
-                fp = fpatchy if fpatchy is not None else 0.0
-                spectrum = (
-                    fp[:, None] * cloudy + (1 - fp[:, None]) * clear
-                )
+            deck_surf = deck_tsurf
+        spectrum = run_rt(parts + cloud_parts, ibottom, deck_itop, deck_surf)
+        if model.is_patchy:
+            clear = run_rt(parts, jnp.full((nb,), nlayers), None, None)
+            fp = fpatchy if fpatchy is not None else 0.0
+            spectrum = fp[:, None] * spectrum + (1 - fp[:, None]) * clear
 
         # ---- Emission post-scalings (forward.py:250-274 semantics):
         if not is_transit:

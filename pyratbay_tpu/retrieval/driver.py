@@ -186,10 +186,7 @@ def run_retrieval(model, seed=0):
             'Gelman-Rubin: '
             + ' '.join(f'{g:.4f}' for g in np.atleast_1d(model.grfactor))
         )
-    try:
-        post_process(model, obs, ret, forward, results)
-    except Exception as exc:
-        log.warning(f'Retrieval post-processing failed: {exc}')
+    post_process(model, obs, ret, forward, results)
     return results
 
 
@@ -277,99 +274,85 @@ def post_process(model, obs, ret, forward, results):
         )
 
     # Spectrum credible envelope:
-    spost = None
-    try:
-        spost = spectrum_posterior(
-            posterior[:: max(1, len(posterior) // 256)],
-            lambda p: forward(p)['spectrum'],
-            max_draws=128,
-        )
-        np.savez(
-            base + '_spectrum_posterior.npz',
-            wn=np.asarray(model.wn), median=spost[0],
-            low1=spost[1], high1=spost[2], low2=spost[3],
-            high2=spost[4], spec_best=model.spec_best,
-        )
-    except Exception as exc:
-        log.warning(f'Spectrum posterior failed: {exc}')
+    spost = spectrum_posterior(
+        posterior[:: max(1, len(posterior) // 256)],
+        lambda p: forward(p)['spectrum'],
+        max_draws=128,
+    )
+    np.savez(
+        base + '_spectrum_posterior.npz',
+        wn=np.asarray(model.wn), median=spost[0],
+        low1=spost[1], high1=spost[2], low2=spost[3],
+        high2=spost[4], spec_best=model.spec_best,
+    )
 
     # Posterior-median atmosphere dump (.atm):
-    median_vmr = None
-    try:
-        medianp = np.asarray(results['posterior']).copy()
-        med = np.median(medianp, axis=0)
-        out = forward(med)
-        temp = np.asarray(out['temperature'])
-        vmr = median_vmr = np.asarray(model.eval_vmr(temp=temp))
-        pio.write_atm(
-            base + '_median.atm', model.press, temp, model.species,
-            vmr, punits='bar',
-        )
-    except Exception as exc:
-        log.warning(f'Posterior atmosphere dump failed: {exc}')
+    med = np.median(np.asarray(results['posterior']), axis=0)
+    temp = np.asarray(forward(med)['temperature'])
+    median_vmr = np.asarray(model.eval_vmr(temp=temp))
+    pio.write_atm(
+        base + '_median.atm', model.press, temp, model.species,
+        median_vmr, punits='bar',
+    )
 
     # Band contribution functions (emission) / transmittances (transit)
     # at the best fit (reference pyrat_obj.py:538-548, 671-696):
     band_cf = None
-    try:
-        if obs is not None and obs.nbands and model.bestp is not None:
-            best_out = forward(model.bestp)
-            band_cf = model.band_contribution(obs, result=best_out)
-            np.savez(
-                base + '_band_contribution.npz',
-                press=np.asarray(model.press), band_cf=band_cf,
-                band_wl=np.asarray(obs.band_wl),
-            )
-            log.msg(
-                f'Band contribution functions written to '
-                f'{base}_band_contribution.npz'
-            )
-    except Exception as exc:
-        log.warning(f'Band contribution functions failed: {exc}')
+    if obs is not None and obs.nbands and model.bestp is not None:
+        best_out = forward(model.bestp)
+        band_cf = model.band_contribution(obs, result=best_out)
+        np.savez(
+            base + '_band_contribution.npz',
+            press=np.asarray(model.press), band_cf=band_cf,
+            band_wl=np.asarray(obs.band_wl),
+        )
+        log.msg(
+            f'Band contribution functions written to '
+            f'{base}_band_contribution.npz'
+        )
 
-    # Plots (headless-safe):
+    # Plots (headless-safe); matplotlib is optional:
     try:
         import matplotlib
-        matplotlib.use('Agg')
-        from .. import plots
-
-        from .. import constants as pc
-        wl = 1.0 / (np.asarray(model.wn) * pc.um)
-        band_wl = obs.band_wl
-        rt_key = (
-            'transit' if model.rt_path in pc.TRANSMISSION_RT else
-            'eclipse' if model.rt_path in pc.ECLIPSE_RT else 'emission'
+    except ImportError:
+        log.warning('matplotlib is not installed: no plots written')
+        return
+    matplotlib.use('Agg')
+    from .. import plots
+    from .. import constants as pc
+    wl = 1.0 / (np.asarray(model.wn) * pc.um)
+    band_wl = obs.band_wl
+    rt_key = (
+        'transit' if model.rt_path in pc.TRANSMISSION_RT else
+        'eclipse' if model.rt_path in pc.ECLIPSE_RT else 'emission'
+    )
+    plots.spectrum(
+        model.spec_best, wl,
+        data=obs.data, uncert=obs.uncert, band_wl=band_wl,
+        bandflux=model.bandflux_best,
+        rt_path=rt_key,
+        filename=base + '_bestfit_spectrum.png',
+    )
+    plots.posteriors(
+        posterior[:, ifree],
+        pnames=[ret.pnames[i] for i in ifree],
+        bestp=model.bestp[ifree],
+        filename=base + '_posteriors.png',
+    )
+    if tpost is not None:
+        plots.temperature(
+            model.press, profiles=[tpost[0]],
+            bounds=(tpost[1], tpost[2], tpost[3], tpost[4]),
+            filename=base + '_temperature.png',
         )
-        plots.spectrum(
-            model.spec_best, wl,
-            data=obs.data, uncert=obs.uncert, band_wl=band_wl,
-            bandflux=model.bandflux_best,
-            rt_path=rt_key,
-            filename=base + '_bestfit_spectrum.png',
+    if band_cf is not None:
+        plots.contribution(
+            band_cf, np.asarray(obs.band_wl),
+            np.asarray(model.press),
+            filename=base + '_band_contribution.png',
         )
-        plots.posteriors(
-            posterior[:, ifree],
-            pnames=[ret.pnames[i] for i in ifree],
-            bestp=model.bestp[ifree],
-            filename=base + '_posteriors.png',
-        )
-        if tpost is not None:
-            plots.temperature(
-                model.press, profiles=[tpost[0]],
-                bounds=(tpost[1], tpost[2], tpost[3], tpost[4]),
-                filename=base + '_temperature.png',
-            )
-        if band_cf is not None:
-            plots.contribution(
-                band_cf, np.asarray(obs.band_wl),
-                np.asarray(model.press),
-                filename=base + '_band_contribution.png',
-            )
-        if median_vmr is not None:
-            plots.abundance(
-                median_vmr, np.asarray(model.press), model.species,
-                filename=base + '_abundance.png',
-            )
-        log.msg(f'Plots written to {base}_*.png')
-    except Exception as exc:
-        log.warning(f'Plotting failed: {exc}')
+    plots.abundance(
+        median_vmr, np.asarray(model.press), model.species,
+        filename=base + '_abundance.png',
+    )
+    log.msg(f'Plots written to {base}_*.png')

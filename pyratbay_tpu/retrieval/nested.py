@@ -1,7 +1,7 @@
 """Device-resident nested sampling (MultiNest-capability interface).
 
 Skilling nested sampling with batched MCMC replacement, designed for
-the TPU's batch appetite instead of MultiNest's MPI likelihood farm
+an accelerator's batch appetite instead of MultiNest's MPI likelihood farm
 (reference pyratbay/tools/retrieval_tools.py:233-383):
 
 * nlive live points evolve on device; every scan step removes the
@@ -144,7 +144,7 @@ def sample_nested(
         larger batches keep the device busier per compile step).
     mesh: optional jax.sharding.Mesh with a 'chains' axis: the batched
         likelihood evaluations (the walk proposals and the live-set
-        init) are sharded across it, the TPU analog of MultiNest's
+        init) are sharded across it, the device analog of MultiNest's
         MPI likelihood farm (reference
         tools/retrieval_tools.py:233-307).  Results are identical to
         the single-device run (the algorithm's randomness is

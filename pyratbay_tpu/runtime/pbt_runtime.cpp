@@ -1,6 +1,6 @@
 // Native runtime: high-throughput line-list parsing and TLI scanning.
 //
-// The TPU compute path is JAX/XLA; this library covers the host-side
+// The device compute path is JAX/XLA; this library covers the host-side
 // IO hot paths (the analog of the reference's native layer, which is
 // compute): multithreaded fixed-record HITRAN .par parsing and ranged
 // binary extraction from TLI files.  Exposed through a C ABI consumed

@@ -2,6 +2,7 @@
 
 Reference behavior: pyratbay/spectrum/contribution_funcs.py.
 """
+import jax
 import jax.numpy as jnp
 
 __all__ = ['contribution_function', 'transmittance', 'band_cf']
@@ -35,5 +36,6 @@ def band_cf(cf, band_weight_matrix):
     band's response (unnormalized is fine; output is max-normalized).
     Returns [nlayers, nbands].
     """
-    bands_cf = cf @ band_weight_matrix.T
+    bands_cf = jnp.matmul(cf, band_weight_matrix.T,
+                          precision=jax.lax.Precision.HIGHEST)
     return bands_cf / jnp.max(bands_cf, axis=0)

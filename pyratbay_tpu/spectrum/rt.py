@@ -1,12 +1,12 @@
 """Radiative-transfer solvers: transit transmission, plane-parallel
 emission, and two-stream fluxes.
 
-TPU-first redesign of the reference's per-wavelength C loops
+Dense-array redesign of the reference's per-wavelength C loops
 (src_c/_trapezoid.c, pyratbay/spectrum/radiative_transfer.py):
 
 * The transit optical depth is a single [nlayers, nlayers-1] x
-  [nlayers-1, nwave] matmul against the chord-geometry matrix -- it runs
-  on the MXU instead of a scalar loop per impact parameter.
+  [nlayers-1, nwave] matmul against the chord-geometry matrix instead
+  of a scalar loop per impact parameter.
 * Early-stop bookkeeping (`ideep`, the layer where tau > maxdepth) is
   replaced by masked full-depth integration: every wavelength integrates
   the same static shape and a comparison mask reproduces the reference's
@@ -63,7 +63,7 @@ def transit_depth(ec, path, maxdepth=np.inf, itop=0, ibottom=None):
     path2 = (
         jnp.pad(path, ((0, 0), (1, 0))) + jnp.pad(path, ((0, 0), (0, 1)))
     )
-    depth = path2 @ ec
+    depth = jnp.matmul(path2, ec, precision=lax.Precision.HIGHEST)
 
     rows = jnp.arange(nlayers)
     in_range = (rows >= itop) & (rows < ibottom)

@@ -1,18 +1,20 @@
 """Batched ensemble forward == vmap(per-chain forward), f64 CPU.
 
 The batched builder restructures the opacity contractions and RT for
-layout-copy-free ensemble execution (retrieval/batched.py); this pins
+fused ensemble execution (retrieval/batched.py); this pins
 its outputs -- spectrum, bandflux, rejection flags, log-posterior --
 against the per-chain forward under vmap, including out-of-bounds
 parameter vectors.
 """
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
 from pyratbay_tpu.benchmark import make_flagship
-from pyratbay_tpu.retrieval import build_forward, build_log_posterior
+from pyratbay_tpu.retrieval import batched, build_forward, build_log_posterior
 from pyratbay_tpu.retrieval.batched import (
     build_forward_batched, build_log_posterior_batched,
 )
@@ -199,29 +201,27 @@ def test_batched_hires_matches_vmap(tmp_path):
 
 
 @pytest.mark.parametrize('geometry', ['transit', 'eclipse'])
-def test_batched_fused_assembly_interpret(geometry, tmp_path):
-    """The FUSED ensemble path (lbw line-sample parts, rank-1
-    Rayleigh/cloud pairs, in-kernel CIA, fused RT kernels) on the
-    pallas interpreter == vmap(forward): covers the batched builder's
-    kernel-operand assembly on CPU CI, not just the kernels in
-    isolation (the round-3/4 interpreter-vs-Mosaic lesson, from the
-    assembly side)."""
-    from pyratbay_tpu import tuning
-
+def test_batched_fused_assembly_interpret(geometry, tmp_path, monkeypatch):
+    """The builder's kernel operands (line-sample part, rank-1
+    Rayleigh/haze pairs, CIA weights, deck) through the Triton RT
+    kernel in the Pallas interpreter == vmap(forward).  The flagship
+    depth (51 layers) exercises the 51 -> 64 layer padding, and its
+    wave grid leaves a partial last tile.  Eclipse runs the dense XLA
+    composition of the same operands."""
+    monkeypatch.setattr(
+        batched, 'transit_spectrum_ensemble', functools.partial(
+            batched.transit_spectrum_ensemble, interpret=True),
+    )
     workdir = str(tmp_path / f'fused_{geometry}')
     model, obs, ret, forward, p0 = make_flagship(
-        workdir, nlayers=21, wl_low=1.1, wl_high=1.3, wnstep=2.0,
+        workdir, nlayers=51, wl_low=1.1, wl_high=1.3, wnstep=5.0,
         rt_path=geometry,
     )
-    try:
-        tuning.set_tuning(ens_force_interpret=True, ens_chain_block=8)
-        forward_b = build_forward_batched(model, obs, ret)
-        assert not forward_b.is_fallback
-        pb = _params(p0, n=4)
-        got = jax.jit(forward_b)(pb)
-    finally:
-        tuning.set_tuning(
-            ens_force_interpret=False, ens_chain_block=32)
+    assert model.nwave % 128
+    forward_b = build_forward_batched(model, obs, ret)
+    assert not forward_b.is_fallback
+    pb = _params(p0, n=4)
+    got = jax.jit(forward_b)(pb)
     ref = jax.jit(jax.vmap(
         lambda p: {k: forward(p)[k] for k in ('spectrum', 'good')},
     ))(pb)

@@ -427,7 +427,7 @@ def test_tea_sub_solar_vs_chemcat_golden(tmp_path):
 
 @requires_reference
 def test_f32_equilibrium_mass_balance():
-    """The float32 (TPU retrieval path) solver preserves element
+    """The float32 (device retrieval path) solver preserves element
     ratios at low pressure (He/H to < 1%)."""
     import jax.numpy as jnp
     species = 'H2 He Na K H2O CH4 CO CO2 NH3 HCN N2'.split()

@@ -91,3 +91,27 @@ def test_multiprocess_flagship_matches_single_process(tmp_path):
     np.testing.assert_allclose(
         multi['logp'], single['logp'], rtol=1e-8,
     )
+
+
+@pytest.mark.parametrize('env, expected', [
+    ({'PBT_NPROCS': 'auto'}, {}),
+    ({'PBT_COORDINATOR': 'localhost:1234', 'PBT_NPROCS': '2',
+      'PBT_PROCID': '1'},
+     {'coordinator_address': 'localhost:1234', 'num_processes': 2,
+      'process_id': 1}),
+])
+def test_initialize_distributed_env(monkeypatch, env, expected):
+    """PBT_NPROCS=auto hands cluster detection to JAX; numeric
+    settings are passed through as integers."""
+    import jax
+    from pyratbay_tpu.parallel import distributed
+    calls = []
+    monkeypatch.setattr(jax.distributed, 'initialize',
+                        lambda **kw: calls.append(kw))
+    monkeypatch.setattr(distributed, '_initialized', False)
+    for key in ('PBT_COORDINATOR', 'PBT_NPROCS', 'PBT_PROCID'):
+        monkeypatch.delenv(key, raising=False)
+    for key, val in env.items():
+        monkeypatch.setenv(key, val)
+    distributed.initialize_distributed()
+    assert calls == [expected]

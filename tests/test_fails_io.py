@@ -412,3 +412,12 @@ def test_read_opacity_single_species(tmp_path):
             ValueError,
             match='Opacity files must contain a single species'):
         pio.read_opacity(fname, 'arrays')
+
+
+def test_read_opacity_h5_without_h5py(tmp_path, monkeypatch):
+    """A petitRADTRANS table without h5py installed names the package."""
+    import sys
+    from pyratbay_tpu.io import io as pio
+    monkeypatch.setitem(sys.modules, 'h5py', None)
+    with pytest.raises(ImportError, match="'h5py'"):
+        pio.read_opacity(str(tmp_path / 'H2O_petitRADTRANS.h5'))

@@ -1,4 +1,4 @@
-"""Direct-evaluation LBL engine (TPU fast path) accuracy tests."""
+"""Direct-evaluation LBL engine (device fast path) accuracy tests."""
 import configparser
 
 import numpy as np

@@ -300,3 +300,33 @@ def test_demc_checkpoint_restores_adapted_gamma(tmp_path):
     # from gamma0 (adaptation moved it during the first run):
     assert resumed['gamma_final'] != first['gamma_final'] or True
     assert np.asarray(resumed['chain_history']).shape[0] == 15
+
+
+def test_run_retrieval_outputs_without_matplotlib(tmp_path, monkeypatch):
+    """Post-processing writes its device-computed outputs and, with
+    matplotlib missing, skips only the plots."""
+    import os
+    import sys
+    from pyratbay_tpu.benchmark import make_flagship
+    from pyratbay_tpu.retrieval.driver import run_retrieval
+
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    workdir = str(tmp_path / 'flag')
+    model, obs, ret, forward, p0 = make_flagship(
+        workdir, nlayers=15, wl_low=1.1, wl_high=1.3, wnstep=8.0,
+    )
+    band = np.asarray(jax.jit(forward)(jnp.asarray(p0))['bandflux'])
+    rng = np.random.default_rng(4)
+    model.cfg.data = band + rng.normal(0, 3e-6, len(band))
+    model.cfg.uncert = np.full(len(band), 3e-6)
+    model.cfg.filters = [f'tophat {wl:.4f} 0.01' for wl in obs.band_wl]
+    model.cfg.nsamples = 160
+    model.cfg.nchains = 8
+    model.cfg.logfile = workdir + '/ret.log'
+    run_retrieval(model, seed=1)
+    base = os.path.splitext(model.cfg.logfile)[0]
+    for suffix in ('.npz', '_spectrum_posterior.npz', '_median.atm',
+                   '_band_contribution.npz'):
+        assert os.path.isfile(base + suffix), suffix
+    assert not os.path.exists(base + '_bestfit_spectrum.png')
+    assert np.all(np.isfinite(model.posterior))
